@@ -1,12 +1,12 @@
-"""dbde_tpu — a TPU-native (JAX/XLA/Pallas) framework for DBDE video.
+"""dbde_tpu — a JAX/XLA framework for DBDE video.
 
 Layers (mirroring SURVEY.md's map of the reference library):
   * :mod:`dbde_tpu.format`    — host byte-level container serde (L2)
   * :mod:`dbde_tpu.ref_numpy` — pure-numpy oracle codec (differential oracle)
-  * :mod:`dbde_tpu.ops`       — JAX/Pallas tile kernels + device codec (L0/L1)
+  * :mod:`dbde_tpu.ops`       — XLA tile ops of the device codec (L0/L1)
   * :mod:`dbde_tpu.codec`     — jitted public encode/decode API (L1/L2)
   * :mod:`dbde_tpu.stream`    — streaming file reader/writer (L3)
-  * :mod:`dbde_tpu.parallel`  — multi-chip sharding (mesh/shard_map)
+  * :mod:`dbde_tpu.parallel`  — multi-device sharding (mesh/shard_map)
   * :mod:`dbde_tpu.utils`     — visualization, config, profiling
 """
 

@@ -8,7 +8,7 @@ multi-byte values are little-endian.
 This module owns everything that lives at the *byte* level on the host:
 header dataclasses, their (de)serialization, and the frame-data layout
 constants.  The pixel-level codec lives in :mod:`dbde_tpu.ref_numpy` (oracle)
-and :mod:`dbde_tpu.ops` (TPU).
+and :mod:`dbde_tpu.ops` (device).
 
 Format parity notes (reference: /root/reference/dbde_util.cpp):
   * The video header is ``i32 u64s(=3), u64 height, u64 width, f64 frame_hz``
@@ -25,7 +25,8 @@ Format parity notes (reference: /root/reference/dbde_util.cpp):
   * The reference's ``DBDE_INVERT_ENDIAN`` build flag (dbde_util.cpp:15-19)
     is intentionally dropped: it byte-swaps in-memory SIMD row lanes on
     big-endian hosts and has no effect on the on-disk format, which is
-    little-endian everywhere (README.md:27); TPU hosts are little-endian.
+    little-endian everywhere (README.md:27); x86-64 and arm64 hosts are
+    little-endian.
 """
 
 from __future__ import annotations

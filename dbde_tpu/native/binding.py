@@ -147,8 +147,8 @@ def gather_fields(buf: bytes, data_offsets, tiles: int, payload_stride_words: in
 
     Pass a ``scratch`` dict (optionally with ``nslots``, default 2) to
     rotate the output arrays through a reused pool: skips the fresh-page
-    fault cost of per-batch ``np.empty`` (~60% of parse time at 16×2048² —
-    ROUND3_NOTES).  Arrays from a pooled call are overwritten again after
+    fault cost of per-batch ``np.empty``.  Arrays from a pooled call are
+    overwritten again after
     ``nslots`` further calls; consumers must finish with them by then.
 
     Alternatively pass ``out`` — an explicit (depths, mins, payload, n64)

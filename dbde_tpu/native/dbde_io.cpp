@@ -1,7 +1,7 @@
 // Native host-side DBDE record IO: scanning, batched field gather, and
 // batched record assembly at memcpy speed.
 //
-// This is the TPU framework's equivalent of the reference's C++ file layer
+// This is the framework's equivalent of the reference's C++ file layer
 // (dbde_file_walker, dbde_util.cpp:362-426) redesigned for a batched device
 // codec: instead of decoding one frame per call, the host scans and splits
 // many self-delimiting records at once, moving bytes between the on-disk

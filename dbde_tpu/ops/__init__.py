@@ -1,9 +1,9 @@
-"""Device-side (JAX/XLA/Pallas) tile codec ops.
+"""Device-side (JAX/XLA) tile codec ops.
 
 The reference's per-tile sequential loops (dbde_util.cpp:150-178, 307-326) are
-re-designed here as a TPU-first two-phase pipeline:
+re-designed here as a data-parallel two-phase pipeline:
 
-  encode:  tile → per-tile min/max/depth (VPU reductions)
+  encode:  tile → per-tile min/max/depth (vector reductions)
            → exclusive prefix-sum of per-tile word counts (offsets)
            → parallel fixed-offset bit-pack of ALL tiles at once
   decode:  offsets from prefix-summed depths

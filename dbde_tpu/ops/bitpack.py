@@ -1,9 +1,9 @@
 """Vectorized variable-bit-depth pack/unpack over u32 lanes.
 
-TPU-first replacement for the reference's per-tile SIMD/scalar bit loops
+Data-parallel replacement for the reference's per-tile SIMD/scalar bit loops
 (encode: dbde_util.cpp:66-100; decode: dbde_util.cpp:229-244).  The reference
-serializes 4k-bit groups through a scalar u64 accumulator; TPUs have no u64
-vector lanes and hate scalar loops, so instead we use the closed form:
+serializes 4k-bit groups through a scalar u64 accumulator; here every tile
+packs at once in u32 lanes, using the closed form:
 
   pixel ``i`` of a depth-``k`` tile occupies bits ``[i*k, i*k + k)`` of the
   tile's payload; u32 word ``j = (i*k) >> 5``, bit offset ``(i*k) & 31``,
@@ -11,7 +11,7 @@ vector lanes and hate scalar loops, so instead we use the closed form:
 
 For each *static* k ∈ 1..8 these index/shift values are compile-time
 constants, so packing 2k words is a flat OR of statically-shifted pixel lanes
-and unpacking 64 pixels is a flat funnel-shift — pure VPU code, vectorized
+and unpacking 64 pixels is a flat funnel-shift — elementwise code, vectorized
 across all tiles of all frames at once.  The 9 static variants are evaluated
 and combined with a per-tile depth select; XLA fuses the whole select chain
 into one elementwise pass, and per-u32 cost is a handful of shift/or ops.

@@ -1,7 +1,7 @@
 """Pure-numpy reference model of the DBDE pixel codec.
 
 This is the slow, obviously-correct oracle that every accelerated path
-(JAX/XLA, Pallas, native IO) is differentially tested against.  It is also the
+(JAX/XLA, native IO) is differentially tested against.  It is also the
 no-accelerator fallback.  It mirrors the public surface of the reference
 library (dbde_util.h:21-37) but in array-in/array-out Python style.
 

@@ -142,8 +142,8 @@ class DbdeReader:
         self._chunks = None
         self._readahead = bool(readahead)
         # reuse_buffers=N rotates the native parse's output arrays through
-        # an N-slot pool (skips per-batch fresh-page faults, ~60% of parse
-        # time at 16×2048²).  A batch's arrays are overwritten after N more
+        # an N-slot pool (skips per-batch fresh-page faults).  A batch's
+        # arrays are overwritten after N more
         # batches are read — keep 0 (off) if the consumer retains them.
         # Applies to iter_raw/host decoding only; the async device iterator
         # always pools via the release-gated _GatedPool (safe by
@@ -182,10 +182,8 @@ class DbdeReader:
         self._mm = None
         # regular files are walked zero-copy through mmap: no readahead
         # thread, no append/compact copies — the record scan and the native
-        # field gather read straight from the page cache.  Profiled on the
-        # buffered path at 2048²: the bytearray append/compact machinery
-        # alone cost ~0.6 s/600 MB, capping the walker at ~230 fps; mmap
-        # removes it entirely.  Pipes/sockets/BytesIO keep the buffered path.
+        # field gather read straight from the page cache.  Pipes, sockets
+        # and BytesIO keep the buffered path.
         try:
             import mmap
             import stat as _stat
@@ -378,10 +376,8 @@ class DbdeReader:
         host→device transfer has provably completed (materializing any
         result computed from the batch implies it).  Steady-state slot use
         is ``pipeline + 1`` buffers reused forever — the same fresh-page
-        fault saving as ``reuse_buffers`` (~60% of parse time at 16×2048²,
-        ROUND3_NOTES) made legal for async dispatch by the explicit gate.
-        Also driven directly by bench_core.run_composed_stream_bench so the
-        composed parse-leg number measures exactly this code path.
+        fault saving as ``reuse_buffers``, made legal for async dispatch by
+        the explicit gate.
         """
         pool = _GatedPool()
         while True:
@@ -505,12 +501,8 @@ class DbdeWriter:
         ns = [int(x) for x in elapsed_ns] if elapsed_ns is not None else [0] * B
         self.frames_written += B
         if self._device:
-            # defer_verify keeps the dispatch fully asynchronous when the
-            # codec's adaptive reduced-plane variant is active: the depth
-            # bound is checked in _drain_one (depths land on the host there
-            # anyway) and the retained frames re-encode on a misprediction
-            enc = self._codec.encode(frames, defer_verify=True)
-            self._pending.append((enc, frames, indices, ns))
+            enc = self._codec.encode(frames)  # async: drained pipeline-deep
+            self._pending.append((enc, indices, ns))
             while len(self._pending) > self.pipeline:
                 self._drain_one()
         else:
@@ -522,22 +514,11 @@ class DbdeWriter:
     def _drain_one(self) -> None:
         from .codec import pack_frames_bytes, record_iovecs
 
-        enc, frames, indices, ns = self._pending.popleft()
-        if enc.depth_bound is not None:
-            # deferred adaptive verification (see write): the depths are
-            # needed on the host below regardless, so the bound check is free
-            if int(np.asarray(enc.depths).max()) > enc.depth_bound:
-                enc = self._codec.encode_general(frames)
-        elif enc.depth_exact is not None:
-            # uniform depth-8 fast-path verification: the payload is valid
-            # only if EVERY real tile depth equals depth_exact
-            d = np.asarray(enc.depths)
-            if int(d.min()) != enc.depth_exact or int(d.max()) != enc.depth_exact:
-                enc = self._codec.encode_general(frames)
+        enc, indices, ns = self._pending.popleft()
         if self._fd is not None:
             # vectored write straight from the encoded host arrays: the
             # kernel's gather copy is the only host pass over the record
-            # bytes (22 → 14 ms per 16-frame 2048² batch vs assemble+write)
+            # bytes
             n64 = np.asarray(enc.n64)
             mx = 2 * int(n64.max()) if len(n64) else 0
             iov = record_iovecs(np.asarray(enc.depths), np.asarray(enc.mins),

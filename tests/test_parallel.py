@@ -125,59 +125,19 @@ def test_sharded_matches_global_n64():
         )
 
 
-def test_sharded_band_backend_byte_parity():
-    """The compiled-kernel (Pallas band, interpreter mode here) sharded path:
-    per-shard segments assemble to the byte-identical global stream and the
-    fused roundtrip step recovers pixels exactly."""
-    mesh = make_mesh(n_data=1, n_tiles=2)
-    rng = np.random.default_rng(13)
-    H, W = 16, 1024  # h=2 tile rows -> 1 per shard
-    frames = (rng.integers(0, 256, (1, H, W)) & rng.integers(0, 256, (1, H, W))).astype(np.uint8)
-    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh, backend="band")
-    payloads = assemble_payload_host(payload, totals)
-    expected = ref.pack_image(frames[0])
-    T = 2 * 128
-    np.testing.assert_array_equal(np.asarray(depth)[0], np.frombuffer(expected, np.uint8, T, 4))
-    np.testing.assert_array_equal(np.asarray(mn)[0], np.frombuffer(expected, np.uint8, T, 8 + T))
-    np.testing.assert_array_equal(payloads[0], np.frombuffer(expected, np.uint32, offset=12 + 2 * T))
-
-    out = decode_sharded(depth, mn, payload, mesh, H=H, W=W, Hp=Hp, backend="band")
-    np.testing.assert_array_equal(out, frames)
-
-
-def test_sharded_band_narrow_width_folded():
-    """Explicit backend="band" at a narrow width: the shard bodies reuse the
-    single-chip fold adapters (codec.band_fold — W=64 folds k=16 tile rows
-    per kernel row), so the Pallas band kernels serve sharded narrow frames
-    too.  Byte parity with the oracle pins the fold's stream invariance
-    across the shard split."""
-    mesh = make_mesh(n_data=1, n_tiles=2)
-    rng = np.random.default_rng(23)
-    H, W = 32, 64  # h=4 tile rows -> 2 per shard, each folded into one row
-    frames = (rng.integers(0, 256, (1, H, W)) & rng.integers(0, 256, (1, H, W))).astype(np.uint8)
-    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh, backend="band")
-    payloads = assemble_payload_host(payload, totals)
-    expected = ref.pack_image(frames[0])
-    T = 4 * 8
-    np.testing.assert_array_equal(np.asarray(depth)[0], np.frombuffer(expected, np.uint8, T, 4))
-    np.testing.assert_array_equal(payloads[0], np.frombuffer(expected, np.uint32, offset=12 + 2 * T))
-    out = decode_sharded(depth, mn, payload, mesh, H=H, W=W, Hp=Hp, backend="band")
-    np.testing.assert_array_equal(out, frames)
-
-
 def test_split_payload_inverse_of_assemble():
     """split_payload_host reconstructs decode-ready per-shard segments from
     a file-flat payload: live prefixes byte-equal the device's own segments
     and the mesh decode of the split is pixel-exact."""
     mesh = make_mesh(n_data=2, n_tiles=2)
     frames = _frames(B=4, H=32, W=30, seed=7)
-    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh, backend="xla")
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
     pays = assemble_payload_host(payload, totals)
     mx = max(p.size for p in pays)
     flat = np.zeros((4, mx), np.uint32)
     for b, p in enumerate(pays):
         flat[b, : p.size] = p
-    segs = split_payload_host(flat, np.asarray(depth), 32, 30, 2, backend="xla")
+    segs = split_payload_host(flat, np.asarray(depth), 32, 30, 2)
     assert segs.shape == np.asarray(payload).shape
     t = np.asarray(totals)
     dev = np.asarray(payload).reshape(4, 2, -1)
@@ -186,37 +146,84 @@ def test_split_payload_inverse_of_assemble():
         for s in range(2):
             np.testing.assert_array_equal(sp[b, s, : t[s, b]], dev[b, s, : t[s, b]])
     out = decode_sharded(np.asarray(depth), np.asarray(mn), segs, mesh,
-                         H=32, W=30, Hp=Hp, backend="xla")
+                         H=32, W=30, Hp=Hp)
     np.testing.assert_array_equal(out, frames)
 
 
-@pytest.mark.parametrize("backend", ["xla", "band"])
-def test_decode_tolerates_garbage_segment_tails(backend):
+GARBAGE_CASES = [((2, 2), 32, 30), ((2, 2), 16, 8), ((1, 4), 64, 1000),
+                 ((4, 1), 21, 77)]
+
+
+@pytest.mark.parametrize("mesh_shape,H,W", GARBAGE_CASES,
+                         ids=[f"{a}x{b}-{h}x{w}" for (a, b), h, w in GARBAGE_CASES])
+def test_decode_tolerates_garbage_segment_tails(mesh_shape, H, W):
     """Segment slot words past each shard's live count must never reach the
     output: the decode window gathers mask dead lanes by depth.  This is
     the invariant that lets split_payload_host skip the worst-case zero
     fill (np.empty slots)."""
-    mesh = make_mesh(n_data=2, n_tiles=2)
-    if backend == "band":
-        rng = np.random.default_rng(11)
-        H, W = 16, 1024
-        frames = (rng.integers(0, 256, (2, H, W))
-                  & rng.integers(0, 256, (2, H, W))).astype(np.uint8)
-    else:
-        H, W = 32, 30
-        frames = _frames(B=4, H=H, W=W, seed=13)
+    n_data, n_tiles = mesh_shape
+    mesh = make_mesh(n_data=n_data, n_tiles=n_tiles)
+    frames = _frames(B=2 * n_data, H=H, W=W, seed=13)
     B = frames.shape[0]
-    depth, mn, payload, totals, bases, Hp = encode_sharded(
-        frames, mesh, backend=backend)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
     t = np.asarray(totals)
-    segs = np.asarray(payload).reshape(B, 2, -1).copy()
+    segs = np.asarray(payload).reshape(B, n_tiles, -1).copy()
     for b in range(B):
-        for s in range(2):
-            segs[b, s, t[s, b]:] = 0xDEADBEEF % (1 << 32)
+        for s in range(n_tiles):
+            segs[b, s, t[s, b]:] = 0xDEADBEEF
     out = decode_sharded(np.asarray(depth), np.asarray(mn),
-                         segs.reshape(B, -1), mesh, H=H, W=W, Hp=Hp,
-                         backend=backend)
+                         segs.reshape(B, -1), mesh, H=H, W=W, Hp=Hp)
     np.testing.assert_array_equal(out, frames)
+
+
+NARROW_CASES = [(1, 2, 32, 8), (1, 2, 32, 64), (2, 2, 48, 16), (4, 2, 16, 24),
+                (2, 1, 40, 320)]
+
+
+@pytest.mark.parametrize("n_data,n_tiles,H,W", NARROW_CASES,
+                         ids=[f"{a}x{b}-{h}x{w}" for a, b, h, w in NARROW_CASES])
+def test_sharded_narrow_width_byte_parity(n_data, n_tiles, H, W):
+    """Narrow frames split into tile-row bands: the assembled per-shard
+    segments equal the oracle's stream and the mesh decode is exact."""
+    mesh = make_mesh(n_data=n_data, n_tiles=n_tiles)
+    rng = np.random.default_rng(H * W)
+    frames = (rng.integers(0, 256, (n_data, H, W))
+              & rng.integers(0, 256, (n_data, H, W))).astype(np.uint8)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    payloads = assemble_payload_host(payload, totals)
+    T = (H // 8) * (-(-W // 8))
+    for b in range(n_data):
+        expected = ref.pack_image(frames[b])
+        np.testing.assert_array_equal(np.asarray(depth)[b],
+                                      np.frombuffer(expected, np.uint8, T, 4))
+        np.testing.assert_array_equal(np.asarray(mn)[b],
+                                      np.frombuffer(expected, np.uint8, T, 8 + T))
+        np.testing.assert_array_equal(
+            payloads[b], np.frombuffer(expected, np.uint32, offset=12 + 2 * T))
+    out = decode_sharded(depth, mn, payload, mesh, H=H, W=W, Hp=Hp)
+    np.testing.assert_array_equal(out, frames)
+
+
+RAGGED_STEPS = [(2, 2, 37, 29), (4, 2, 13, 11), (2, 4, 70, 9), (1, 8, 61, 130)]
+
+
+@pytest.mark.parametrize("n_data,n_tiles,H,W", RAGGED_STEPS,
+                         ids=[f"{a}x{b}-{h}x{w}" for a, b, h, w in RAGGED_STEPS])
+def test_sharded_roundtrip_step_ragged_geometries(n_data, n_tiles, H, W):
+    """The fused step pads ragged H to whole bands internally and crops
+    back: exact pixels, and n64 equal to the single-device encoding's when
+    the bands need no extra tile rows."""
+    mesh = make_mesh(n_data=n_data, n_tiles=n_tiles)
+    frames = _frames(B=2 * n_data, H=H, W=W, seed=H + W)
+    out, n64 = sharded_roundtrip_step(frames, mesh)
+    np.testing.assert_array_equal(out, frames)
+    if -(-H // 8) % n_tiles == 0:
+        import struct
+
+        T = (-(-H // 8)) * (-(-W // 8))
+        exp = sum(struct.unpack_from("<i", ref.pack_image(f), 8 + 2 * T)[0]
+                  for f in frames)
+        assert int(n64) == exp
 
 
 def test_assemble_payload_padded_matches_ragged():
@@ -224,7 +231,7 @@ def test_assemble_payload_padded_matches_ragged():
     every live prefix (rows are np.empty-padded past 2*n64)."""
     mesh = make_mesh(n_data=2, n_tiles=2)
     frames = _frames(B=4, H=32, W=30, seed=5)
-    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh, backend="xla")
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
     pay, n64 = assemble_payload_padded(payload, totals)
     t = np.asarray(totals)
     segments = np.asarray(payload).reshape(4, 2, -1)
@@ -268,42 +275,3 @@ def test_sharded_file_write_and_read(tmp_path):
     assert vh.frame_hz == 7.0
     assert [h.index for h in headers] == list(range(5))
     np.testing.assert_array_equal(out, frames)
-
-
-def test_sharded_file_band_backend(tmp_path):
-    """Sharded file write/read through the compiled band kernels
-    (interpreter mode on the virtual mesh): byte parity with the oracle and
-    pixel-exact mesh decode of the file's flat payload."""
-    mesh = make_mesh(n_data=1, n_tiles=2)
-    rng = np.random.default_rng(29)
-    H, W = 16, 1024
-    frames = (rng.integers(0, 256, (2, H, W)) & rng.integers(0, 256, (2, H, W))).astype(np.uint8)
-    p = tmp_path / "sb.dbde"
-    write_video_sharded(p, frames, mesh, frame_hz=3.0, backend="band")
-    assert p.read_bytes() == ref.encode_video(list(frames), frame_hz=3.0)
-    vh, headers, out = read_video_sharded(p, mesh, backend="band")
-    np.testing.assert_array_equal(out, frames)
-
-
-def test_sharded_band_fused_multiblock():
-    """The fused band sharded_roundtrip_step on a 2x2 virtual mesh with
-    MULTI-BLOCK shards: n_data=2 (one frame per data shard), n_tiles=2 with
-    34 tile rows per shard (H=544 → L=272 real rows → 512 padded → nb=2 per
-    shard at the adaptive 256-row W=1024 blocks).  Covers what the
-    byte-parity test above cannot:
-    several tile rows per shard, the cross-block seam pipeline inside each
-    shard, and the fused encode→decode program with the cross-mesh psum."""
-    mesh = make_mesh(n_data=2, n_tiles=2)
-    rng = np.random.default_rng(17)
-    H, W = 544, 1024
-    frames = (rng.integers(0, 256, (2, H, W)) & rng.integers(0, 256, (2, H, W))).astype(np.uint8)
-    out, n64 = sharded_roundtrip_step(frames, mesh, backend="band")
-    np.testing.assert_array_equal(out, frames)
-    import struct
-
-    exp_n64 = 0
-    for b in range(2):
-        e = ref.pack_image(frames[b])
-        T = (H // 8) * (W // 8)
-        exp_n64 += struct.unpack_from("<i", e, 8 + 2 * T)[0]
-    assert int(n64) == exp_n64
